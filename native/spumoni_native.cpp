@@ -17,7 +17,7 @@
 // It also provides a dense-array CPU query engine implementing the exact
 // MS/PML streaming recurrence of /root/reference/src/compute_ms_pml.cpp:237-286
 // and :570-623, with rank/select realized as binary searches over per-character
-// run tables — the same layout the TPU kernels use. This doubles as
+// run tables — the same layout the device kernels use. This doubles as
 // (a) the measured multi-thread CPU baseline, and (b) the oracle for JAX
 // engine parity tests.
 //

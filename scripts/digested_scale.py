@@ -7,8 +7,8 @@ a digested 5 Mbp reference indexes to ~1.1 Mbp, which fits the CPU's LLC.
 This config digests the 2.1 Gbp scale pangenome (-> ~450 Mbp promoted
 text), so the CPU is DRAM-bound again, and measures both sides.
 
-  tpu   digest text+reads, build index (cached), fused classify on chip
-  cpu   32-thread-extrapolated native baseline on the same digested index
+  device  digest text+reads, build index (cached), fused classify on GPU
+  cpu     32-thread-extrapolated native baseline on the same digested index
 """
 import argparse
 import json
@@ -16,12 +16,12 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
-import numpy as np
+import numpy as np  # noqa: E402
 
-CACHE = os.path.join(os.path.expanduser("~"), ".cache", "spumoni_tpu",
-                     "bench", "digested_scale")
+CACHE = os.path.join(REPO, ".bench_cache", "digested_scale")
 B, L = 131072, 1024
 
 
@@ -69,14 +69,14 @@ def _assets():
     return raw, pk.buf, pk.offs
 
 
-def tpu(args):
+def device(args):
     import jax
     import jax.numpy as jnp
     from spumoni_tpu.engine.layered import build_layered
     from spumoni_tpu.engine.scan_engine import _pack_rows
     from spumoni_tpu.index.format import build_dense_index
     from spumoni_tpu.parallel.mesh import fused_classify_kernel
-    from spumoni_tpu.utils import device_put_chunked, present_chars
+    from spumoni_tpu.utils import present_chars
 
     raw, buf, offs = _assets()
     t0 = time.time()
@@ -90,16 +90,16 @@ def tpu(args):
     lens = np.minimum(lens, Ld)
     alphabet = tuple(sorted({0} | set(int(c) for c in host.index_chars)
                             | set(int(x) for x in present_chars(rev))))
-    planes = host.planes_for_alphabet(alphabet)
+    ctab = host.table_for_alphabet(alphabet)
     rev = host.rank_map(alphabet)[rev]
-    rev_d = device_put_chunked(rev)
+    rev_d = jax.device_put(rev)
     lens_d = jax.device_put(jnp.asarray(lens))
     rp = int(arrays.fields.shape[0])
     bin_width, thr = 150, 4
 
     def step():
         return fused_classify_kernel(arrays, rev_d, lens_d, thr, meta,
-                                     "pml", rp, bin_width, planes)
+                                     "pml", rp, bin_width, ctab)
 
     f, a, b_, s = step()
     found = np.asarray(f)
@@ -116,7 +116,7 @@ def tpu(args):
            "value": round(B / dt, 2),
            "unit": "reads/s (1024bp raw, promotion-digested, 2.1 Gbp ref)"}
     print(json.dumps(res), flush=True)
-    with open(os.path.join(CACHE, "tpu_result.json"), "w") as f_:
+    with open(os.path.join(CACHE, "device_result.json"), "w") as f_:
         json.dump(res, f_)
 
 
@@ -156,15 +156,15 @@ print(len(reads) / (time.time() - t0) / threads)
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("cmd", choices=["tpu", "cpu", "assets",
-                                "tpu_doc", "cpu_doc",
-                                "doc_assets"])
+    ap.add_argument("cmd", choices=["device", "cpu", "assets",
+                                    "device_doc", "cpu_doc",
+                                    "doc_assets"])
     args = ap.parse_args()
     if args.cmd in ("assets", "doc_assets"):
         os.environ["JAX_PLATFORMS"] = "cpu"
         (_assets if args.cmd == "assets" else _doc_assets)()
         return
-    {"tpu": tpu, "cpu": cpu, "tpu_doc": tpu_doc,
+    {"device": device, "cpu": cpu, "device_doc": device_doc,
      "cpu_doc": cpu_doc}[args.cmd](args)
 
 
@@ -172,7 +172,7 @@ def main():
 
 # --------------------------------------------------------------------------
 # doc_scale: BASELINE config 5 — minimizer-digested + doc-array MULTI-CLASS
-# at genome scale (VERDICT r4 missing #3). Documents are 8 x 260 Mbp
+# at genome scale. Documents are 8 x 260 Mbp
 # genomes at 2% pairwise divergence (distinct enough that a read's majority
 # doc id is a meaningful class verdict; 0.2%-divergent strains would tie).
 # Digestion is per-document, matching RefBuilder's per-input digestion
@@ -255,7 +255,7 @@ def _doc_assets():
     return (raw, np.asarray(doc_lens), ds, de, pk.buf, pk.offs, src_doc)
 
 
-def tpu_doc(args):
+def device_doc(args):
     """Digested + doc-array multi-class at scale: v2 layered scan with doc
     tracking (the digested alphabet's sigma > 8 rules out the v4 row
     formats — the measured reason this config cannot ride the one-gather
@@ -266,7 +266,7 @@ def tpu_doc(args):
     from spumoni_tpu.engine.scan_engine import (_pack_rows,
                                                 query_batch_kernel_v2)
     from spumoni_tpu.index.format import build_dense_index
-    from spumoni_tpu.utils import device_put_chunked, present_chars
+    from spumoni_tpu.utils import present_chars
 
     raw, doc_lens, ds, de, buf, offs, src_doc = _doc_assets()
     t0 = time.time()
@@ -280,9 +280,9 @@ def tpu_doc(args):
     lens = np.minimum(lens, Ld)
     alphabet = tuple(sorted({0} | set(int(c) for c in host.index_chars)
                             | set(int(x) for x in present_chars(rev))))
-    planes = host.planes_for_alphabet(alphabet)
+    ctab = host.table_for_alphabet(alphabet)
     rev = host.rank_map(alphabet)[rev]
-    rev_d = device_put_chunked(rev)
+    rev_d = jax.device_put(rev)
     lens_d = jax.device_put(jnp.asarray(lens))
     # thr=3: each document appears ONCE here (8 docs at 2% pairwise
     # divergence), so positive PMLs run shorter than the 14-near-copy
@@ -294,11 +294,11 @@ def tpu_doc(args):
     import functools
 
     @functools.partial(jax.jit, static_argnames=("meta",))
-    def verdicts(arrays, planes, meta, rev_, lens_):
-        # arrays/planes as ARGUMENTS: a closure would capture the 6.6 GB
+    def verdicts(arrays, ctab, meta, rev_, lens_):
+        # arrays/ctab as ARGUMENTS: a closure would capture the 6.6 GB
         # index as lowered constants (baked into the executable)
         vals, docs, _ = query_batch_kernel_v2(arrays, rev_, meta, "pml",
-                                              True, planes)
+                                              True, ctab)
         iota = jnp.arange(vals.shape[1])[None, :]
         act = (iota < lens_[:, None]) & (vals >= thr)
         # majority doc over above-threshold positions: nd counts per lane
@@ -318,7 +318,7 @@ def tpu_doc(args):
         found = above * 2 > has
         return found, best
 
-    found, best = verdicts(arrays, planes, meta, rev_d, lens_d)
+    found, best = verdicts(arrays, ctab, meta, rev_d, lens_d)
     found, best = np.asarray(found), np.asarray(best)
     log(f"first step done ({time.time()-t0:.0f} s)")
     pos = src_doc >= 0
@@ -342,7 +342,7 @@ def tpu_doc(args):
 
     reps, t1 = 3, time.time()
     for _ in range(reps):
-        found, best = verdicts(arrays, planes, meta, rev_d, lens_d)
+        found, best = verdicts(arrays, ctab, meta, rev_d, lens_d)
     np.asarray(found)
     dt = (time.time() - t1) / reps
     res = {"metric": "pml_digested_doc_multiclass_reads_per_s_chip_scale",
@@ -351,7 +351,7 @@ def tpu_doc(args):
                     f"{DOC_LEN/1e6:.0f} Mbp, pos_found={pos_found:.3f}, "
                     f"neg_found={neg_found:.3f}, doc_acc={doc_acc:.3f})")}
     print(json.dumps(res), flush=True)
-    with open(os.path.join(CACHE_DOC, "tpu_result.json"), "w") as f_:
+    with open(os.path.join(CACHE_DOC, "device_result.json"), "w") as f_:
         json.dump(res, f_)
 
 

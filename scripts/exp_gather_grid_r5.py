@@ -1,9 +1,13 @@
 """Gather-cost grid at 2.1 Gbp scale: ns/lane for 67M row gathers as a
 function of (rows, row bytes) at constant total table size — the physics
 that sets the v4-MS scan floor (msrows shape choice) and the jump-table
-reconstruction cost. Also times a 1-D element gather (recon's shape)."""
+reconstruction cost. Also times a 1-D element gather (recon's shape).
+
+    python scripts/exp_gather_grid_r5.py     # on the GPU; ~10 GB of tables
+"""
+import os
 import sys
-sys.path.insert(0, '/root/repo')
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import time
 import numpy as np
 import spumoni_tpu  # noqa

@@ -3,23 +3,21 @@
 scale bench cache (dense npz + null DB), then measure pipeline.run
 wall-including-setup twice — the first run materializes the dense index and
 writes the engine-row cache; the second takes the FAST START (bbrows
-manifest, no dense load). The VERDICT r4 #5 measurement at the scale the
-cache supports (GRCh38's 23 GB dense npz is the extreme case; the 2.1 Gbp
-index's is ~9 GB)."""
+manifest, no dense load), at the scale the cache supports (GRCh38's 23 GB
+dense npz is the extreme case; the 2.1 Gbp index's is ~9 GB)."""
 import argparse
 import json
 import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
-import numpy as np
+import numpy as np  # noqa: E402
 
-CACHE = os.path.join(os.path.expanduser("~"), ".cache", "spumoni_tpu",
-                     "bench", "scale")
-PROD = os.path.join(os.path.expanduser("~"), ".cache", "spumoni_tpu",
-                    "bench", "scale_product")
+CACHE = os.path.join(REPO, ".bench_cache", "scale")
+PROD = os.path.join(REPO, ".bench_cache", "scale_product")
 N_READS = 16384
 
 

@@ -1,7 +1,8 @@
 """Command-line interface: `spumoni-tpu build` / `spumoni-tpu run`.
 
-Flag-compatible with the reference CLI (/root/reference/src/spumoni.cpp:32-206)
-where the semantics carry over, plus TPU-specific options (--device, batching).
+Flag-compatible with the reference CLI (its src/spumoni.cpp:32-206) where the
+semantics carry over, plus device options (--device, --engine, batching,
+--tp-devices).
 """
 
 from __future__ import annotations
@@ -9,14 +10,14 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .pipeline import (BuildConfig, RunConfig, build, import_reference_build,
-                       run)
+from .pipeline import (BuildConfig, DeviceUnavailable, RunConfig, build,
+                       import_reference_build, run)
 
 
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="spumoni-tpu",
-        description="TPU-native matching-statistics engine "
+        description="GPU matching-statistics engine "
                     "(MS/PML computation and read classification)")
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -103,22 +104,24 @@ def _build_parser() -> argparse.ArgumentParser:
     r.add_argument("-w", "--window", dest="bin_size", type=int, default=150)
     r.add_argument("-t", "--threads", dest="threads", type=int, default=1,
                    help="CPU threads (device=cpu)")
-    r.add_argument("--device", choices=["tpu", "cpu"], default="tpu",
-                   help="query engine backend (default: tpu)")
+    r.add_argument("--device", choices=["gpu", "cpu"], default="gpu",
+                   help="query engine: gpu = the JAX engines on the GPU "
+                        "(an error when JAX finds no GPU), cpu = the "
+                        "multithreaded native engine (default: gpu)")
     r.add_argument("--engine", choices=["auto", "layered", "occ", "bits"],
                    default="auto",
-                   help="TPU kernel layout: block-bits v4 (PML default when "
-                        "eligible), layered v2 (MS/doc and large indexes), "
-                        "occ-block v3 (kept for stronger-VPU parts)")
+                   help="device index layout: block-bits v4 (default when "
+                        "eligible, PML and MS), layered v2 (byte alphabets "
+                        "such as -m), occ-block v3 (on request only)")
     r.add_argument("--batch-bases", dest="batch_bases", type=int,
-                   default=33_554_432, help="bases per device batch (the "
-                        "scan step is latency-floored, so reads/s scales "
-                        "with lanes per kernel call)")
+                   default=33_554_432, help="bases per device batch (a scan "
+                        "step costs about the same at 8k or 64k lanes, so "
+                        "reads/s grows with lanes per kernel call)")
     r.add_argument("--tp-devices", dest="tp_devices", type=int, default=0,
-                   help="ICI-sharded index: shard the index rows over this "
-                        "many devices on the 'model' mesh axis (classify-"
-                        "only; 0 = auto when the index exceeds the HBM "
-                        "budget, -1 = never)")
+                   help="sharded index: shard the index rows over this "
+                        "many devices on the 'model' mesh axis (-P -c "
+                        "--report-only or -M; 0 = auto when the index "
+                        "exceeds the per-device memory budget, -1 = never)")
     r.add_argument("--ks-report", dest="ks_report", action="store_true",
                    help="classify via windowed KS test instead of bin-max")
     r.add_argument("--resume", dest="resume", action="store_true",
@@ -126,7 +129,7 @@ def _build_parser() -> argparse.ArgumentParser:
     r.add_argument("--report-only", dest="report_only", action="store_true",
                    help="with -c: write only the .report (no value files); "
                         "classification is fused on device and only O(B) "
-                        "verdict summaries leave the chip")
+                        "verdict summaries leave the device")
     return p
 
 
@@ -157,7 +160,10 @@ def main(argv=None) -> int:
         from .parallel.distributed import initialize
         pidx, pcount = initialize()
         cfg = RunConfig(process_index=pidx, process_count=pcount, **kwargs)
-        run(cfg)
+        try:
+            run(cfg)
+        except DeviceUnavailable as e:
+            raise SystemExit(f"error: {e}") from None
         return 0
     return 1
 

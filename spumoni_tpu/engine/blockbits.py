@@ -2,9 +2,8 @@
 
 Engine v3 (occblock.py) already reached one gather per step, but its rows
 carry per-occurrence threshold VALUES (P i32 words — 512 B of the 644 B row)
-and the threshold test forces a one-step deferred "candidate" pipeline.
-Measured on v5e that lost to v2: wide rows gather slower and the [B, P]-wide
-selects over the fat row cost ~300 us of VPU time.
+and the threshold test forces a one-step deferred "candidate" pipeline: wide
+rows to gather and [B, P]-wide selects over the fat row.
 
 This engine removes both costs with one observation about the PML recurrence
 (/root/reference/src/compute_ms_pml.cpp:237-286): the threshold only ever
@@ -46,12 +45,13 @@ Packing variants:
     comparisons, and terminator QUERIES (rank/match/threshold of a
     single-run character) are answered entirely from those scalars.
 
-Per step: 1 row gather + ~15 [B, P/16] VPU ops + the per-char constant
-one-hot matmul (MXU). No deferral: the carry is just (pos, length).
+Per step: 1 row gather + ~15 [B, P/16] element-wise ops + the per-char
+constant lookup. No deferral: the carry is just (pos, length).
 
-PML-only by design: MS jumps consume per-run SA samples (values, not
-predicates) — MS queries use engine v2/v3. Row count = ceil(n/P) and row
-width trade off against the v5e gather cliff; P is chosen per index size.
+MS jumps consume per-run SA samples (values, not predicates); the v4-MS
+variant (make_blockbits_ms_step_fn) carries jump ids instead and rebuilds the
+samples after the scan. Row count = ceil(n/P) and row width trade off
+against each other; P is chosen per index size (pick_P).
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ class BitArrays(NamedTuple):
     first_run_sdoc: jnp.ndarray
     text: Optional[jnp.ndarray] = None  # [nt] u8 (MS extension)
     # --- v4-MS side table (one INDEPENDENT gather riding next to THE
-    # dependent row gather — independent gathers pipeline, PERF_NOTES r2) ---
+    # dependent row gather, so the two can overlap) ---
     msrows: Optional[jnp.ndarray] = None  # [nb, Wm] i32 (run-rank layout)
     # jump tables indexed by jidx (see make_blockbits_ms_step_fn):
     #   jump_t[2j] = c_ssamp[j], [2j+1] = c_esamp[j],
@@ -109,11 +109,11 @@ class BitMeta(NamedTuple):
     # (include/spumoni_main.hpp:60). In-row SWAR rank/char work remains
     # int32; only checkpoint arithmetic widens.
     wide: bool = False
-    # ICI-sharded rows (TP): set when the step runs inside a shard_map whose
+    # sharded rows (TP): set when the step runs inside a shard_map whose
     # `tp_axis` mesh axis shards `bblocks` by rows — THE gather becomes an
     # owner-masked local gather + one [B, W] psum per step (cheap relative
-    # to the layered TP path: v4 does exactly one probe). The >HBM escape
-    # hatch for indexes past a chip's HBM (parallel/tp.py).
+    # to the layered TP path: v4 does exactly one probe). The escape hatch
+    # for indexes past one device's memory (parallel/tp.py).
     tp_axis: Optional[str] = None
     # --- v4-MS fields ---
     has_ms: bool = False   # msrows + jump_t present (MS / doc tracking)
@@ -135,9 +135,10 @@ def _pack_of(idx) -> Optional[int]:
 
 def pick_P(n: int, pack: int, over_cliff: bool = False,
            wide: bool = False) -> Optional[int]:
-    # fewer rows measures faster on v5e until row width passes ~256 B
-    # (P=256 pack=2: 240k reads/s vs P=512's 229k on the 5 Mbp bench);
-    # prefer the largest P at <=256 B, falling back to <=512 B rows
+    # fewer rows, one gather per step: prefer the largest P whose row stays
+    # <= 256 B, falling back to <= 512 B rows, and keep the row count under
+    # ROW_CLIFF (a gather cost step measured on the earlier target; whether
+    # it holds on the GPU is ROADMAP design item 4)
     best = None
     for cap in (256, 512):
         for P in (64, 128, 256, 512):
@@ -149,12 +150,10 @@ def pick_P(n: int, pack: int, over_cliff: bool = False,
         if best is not None:
             break
     if best is None and over_cliff:
-        # past the cliff every row gather costs ~13.6 ns/lane regardless of
-        # row count, but narrow rows at huge row counts are far worse
-        # (scripts/exp_vmem_gather2.py on v5e: 4.1M x 400 B rows = 12.9
-        # ns/lane vs 8.2M x 208 B = 60.7 ns/lane). Take the largest P whose
-        # row still fits the 512 B cap the under-cliff selector honors
-        # (512 for pack=2 = 400 B rows; 128 for pack=4 = 288 B rows).
+        # past the cliff fewer, wider rows gathered faster than many narrow
+        # ones on the earlier target: take the largest P whose row still
+        # fits the 512 B cap the under-cliff selector honors (512 for
+        # pack=2 = 400 B rows; 128 for pack=4 = 288 B rows).
         for P in (512, 256, 128, 64):
             if _width(P, pack, wide) * 4 <= 512:
                 return P
@@ -170,16 +169,16 @@ def _width(P: int, pack: int, wide: bool = False) -> int:
 
 
 def eligible(idx) -> bool:
-    """Under-cliff eligibility: the fast-zone (one ~4 ns gather) regime."""
+    """Under-cliff eligibility: the row count stays under ROW_CLIFF."""
     pack = _pack_of(idx)
     return pack is not None and pick_P(int(idx.n), pack) is not None
 
 
 def eligible_any(idx) -> bool:
-    """Over-cliff included: one ~13.6 ns gather per step still beats engine
-    v2's multi-probe step at human-genome scale (PERF_NOTES.md round 2).
-    Past 2^31 positions the wide layout (split-checkpoint rows, int64
-    lanes) extends coverage to n < 2^40 — the reference's own SSABYTES=5
+    """Over-cliff included: one row gather per step against engine v2's
+    multi-probe descent at human-genome scale. Past 2^31 positions the
+    wide layout (split-checkpoint rows, int64 lanes) extends coverage to
+    n < 2^40 — the reference's own SSABYTES=5
     addressing limit (include/spumoni_main.hpp:60)."""
     pack = _pack_of(idx)
     return pack is not None and int(idx.n) < 2**40
@@ -207,8 +206,8 @@ def _bb_cache_key(idx, P: int, pack: int, wide: bool) -> np.ndarray:
 def _manifest_arrays(idx, src_path: Optional[str]) -> dict:
     """O(sigma) scalars stored alongside the cached rows so a later `run`
     can assemble the engine WITHOUT materializing the dense index npz
-    (VERDICT r4 weak #4: a PML report-only serve needs rows + F/cnt
-    scalars + the null DB, not the multi-GB dense index). m_stat pins the
+    (a PML report-only serve needs rows + F/cnt scalars + the null DB,
+    not the multi-GB dense index). m_stat pins the
     source index file (size, mtime_ns) — a rebuilt index at the same path
     invalidates the fast start and falls back to the dense load, which
     re-verifies via the content key."""
@@ -567,8 +566,6 @@ def _assemble_blockbits(idx, rows: np.ndarray, P: int, pack: int, wide: bool,
     """Host rows (built or cache-loaded) -> (BitArrays on device, BitMeta,
     OccHost). Everything here is cheap (O(r) scalars), so the cache only
     stores the rows."""
-    from ..utils import device_put_chunked
-
     n = int(idx.n)
     r = int(idx.r)
     cnt = np.asarray(idx.cnt, dtype=np.int64)
@@ -605,8 +602,7 @@ def _assemble_blockbits(idx, rows: np.ndarray, P: int, pack: int, wide: bool,
         if want_ms:
             sdt = np.int64 if wide else np.int32
             # padded to a 128 multiple: the reconstruction gathers [*, 128]
-            # ROWS of this table (scan_engine._take_flat_rows — 9.8 vs 15.0
-            # ns/lane for 1-D element gathers at genome scale)
+            # ROWS of this table (scan_engine._take_flat_rows)
             T = np.zeros(-(-(2 * r + 2) // 128) * 128, dtype=sdt)
             T[0:2 * r:2] = np.asarray(idx.c_ssamp, dtype=sdt)
             T[1:2 * r:2] = np.asarray(idx.c_esamp, dtype=sdt)
@@ -618,7 +614,7 @@ def _assemble_blockbits(idx, rows: np.ndarray, P: int, pack: int, wide: bool,
                 if tp != len(t_):
                     t_ = np.concatenate(
                         [t_, np.zeros(tp - len(t_), dtype=np.uint8)])
-                text = device_put_chunked(t_)
+                text = jax.device_put(t_)
         if want_doc:
             D = np.zeros(-(-(2 * r + 2) // 128) * 128, dtype=np.int32)
             D[0:2 * r:2] = np.asarray(idx.c_sdoc, dtype=np.int32)
@@ -627,14 +623,14 @@ def _assemble_blockbits(idx, rows: np.ndarray, P: int, pack: int, wide: bool,
             D[2 * r + 1] = np.int32(idx.last_run_edoc)
             jump_d = jnp.asarray(D)
     arrays = BitArrays(
-        bblocks=device_put_chunked(rows),
+        bblocks=jax.device_put(rows),
         n=jnp.asarray(np.asarray(n, dtype=pdt)),
         last_run_sample=jnp.asarray(
             np.asarray(idx.last_run_sample, dtype=pdt)),
         last_run_edoc=jnp.asarray(np.asarray(idx.last_run_edoc, pdt)),
         first_run_sdoc=jnp.asarray(np.asarray(idx.first_run_sdoc, pdt)),
         text=text,
-        msrows=device_put_chunked(msrows) if has_ms else None,
+        msrows=jax.device_put(msrows) if has_ms else None,
         jump_t=jump_t, jump_d=jump_d,
     )
     meta = BitMeta(P=P, width=W, sigma=sigma, pack=pack,
@@ -644,7 +640,7 @@ def _assemble_blockbits(idx, rows: np.ndarray, P: int, pack: int, wide: bool,
                    has_text=text is not None, wide=wide,
                    has_ms=has_ms, ms_width=_ms_width(P, pack) if has_ms else 0,
                    r=r, term_runidx=term_runidx)
-    # F/Fnext tables indexed by QUERY-RANK CODE (OccHost.planes_for_alphabet
+    # F/Fnext tables indexed by QUERY-RANK CODE (OccHost.table_for_alphabet
     # indexes Fnext_sigma[rmap[byte]]); slot TERM_CODE serves the terminator
     f_by_code = np.zeros(16, dtype=np.int64)
     fnext_by_code = np.zeros(16, dtype=np.int64)
@@ -665,7 +661,7 @@ def _assemble_blockbits(idx, rows: np.ndarray, P: int, pack: int, wide: bool,
 
 
 def _make_probe_fn(meta: BitMeta, need_ms: bool = False):
-    """Shared per-step math of the block-bits engines: the one-hot per-char
+    """Shared per-step math of the block-bits engines: the per-char
     constants, THE dependent row gather, SWAR in-block rank, checkpoint /
     up-bit selects, terminator corrections, and the 3-way branch decision.
     Returns a dict of everything the PML and MS/doc steps consume.
@@ -683,20 +679,13 @@ def _make_probe_fn(meta: BitMeta, need_ms: bool = False):
     # SWAR constants: per-code-group LSB mask for this packing
     lsb = int(sum(1 << (pack * j) for j in range(per_word)))  # 0x111../0x555..
 
-    def probe(ix: BitArrays, pos, qc, planes):
+    def probe(ix: BitArrays, pos, qc, ctab):
         dt = pos.dtype                     # int32, or int64 in wide mode
         i32 = jnp.int32                    # in-row work always stays 32-bit
-        B = pos.shape[0]
 
-        # per-char constants via one-hot MXU matmul on 8-bit planes (5 planes
-        # cover the 40-bit F/Fnext values of wide mode; acc is dt-wide)
-        sq = planes[0].shape[0]
-        onehot = (qc.astype(i32)[:, None] ==
-                  jnp.arange(sq, dtype=i32)[None, :]).astype(jnp.float32)
-        acc = jnp.zeros((B, planes[0].shape[1]), dtype=dt)
-        for p, plane in enumerate(planes):
-            part = jnp.dot(onehot, plane, preferred_element_type=jnp.float32)
-            acc = acc + (part.astype(dt) << (8 * p))
+        # per-char constants: one gather from the [sigma_pad, 5] int64
+        # table (40-bit F/Fnext in wide mode; query ranks < sigma_pad)
+        acc = ctab[qc.astype(i32)].astype(dt)
         c_blk, empty_i, Fb, Fnext = acc[:, 0], acc[:, 1], acc[:, 2], acc[:, 3]
         empty = empty_i == 1
         rk = jnp.clip(c_blk, 0, nslots - 1).astype(i32)
@@ -705,7 +694,7 @@ def _make_probe_fn(meta: BitMeta, need_ms: bool = False):
         nb_local = ix.bblocks.shape[0]
         blk = (pos >> logP).astype(i32)    # nb < 2^31 even in wide mode
         if meta.tp_axis is not None:
-            # ICI-sharded rows: the owner shard gathers locally, others
+            # sharded rows: the owner shard gathers locally, others
             # contribute zeros; psum reassembles the row on every shard
             # (lanes stay replicated along tp, so carries never diverge)
             tpi = jax.lax.axis_index(meta.tp_axis).astype(i32)
@@ -728,7 +717,7 @@ def _make_probe_fn(meta: BitMeta, need_ms: bool = False):
             blkc = jnp.clip(blk, 0, nb - 1)
             row = ix.bblocks[blkc]                              # [B, W]
             # the MS side row: INDEPENDENT of `row` (same index), so the
-            # two HBM gathers pipeline instead of serializing
+            # two gathers can overlap instead of serializing
             msrow = ix.msrows[blkc] if need_ms else None
         off = (pos & (P - 1)).astype(i32)
 
@@ -809,14 +798,14 @@ def _make_probe_fn(meta: BitMeta, need_ms: bool = False):
 def make_blockbits_step_fn(meta: BitMeta, mode: str, use_doc: bool):
     """One backward PML step. carry = (pos, length, sample, doc) for state
     compatibility with the other engines; sample/doc pass through. chars
-    must be QUERY-rank mapped; `planes` are OccHost.planes_for_alphabet."""
+    must be QUERY-rank mapped; `ctab` is OccHost.table_for_alphabet's."""
     assert mode == "pml" and not use_doc, \
         "MS / doc tracking use make_blockbits_ms_step_fn"
     probe = _make_probe_fn(meta)
 
-    def step(ix: BitArrays, carry, qc, planes):
+    def step(ix: BitArrays, carry, qc, ctab):
         pos, length, sample, doc = carry
-        pr = probe(ix, pos, qc, planes)
+        pr = probe(ix, pos, qc, ctab)
         new_length = jnp.where(pr["is_match"], length + 1, 0)
         return (pr["new_pos"], new_length, sample, doc), (new_length, doc)
 
@@ -840,7 +829,7 @@ def make_blockbits_ms_step_fn(meta: BitMeta, mode: str, use_doc: bool):
     The jump-target run index needs the char-LOCAL run rank at pos: msrows
     carries per-code run-rank checkpoints + run-start bits (same SWAR
     pattern as the main row's up-bits), and the char-grouped base
-    (char_off[c]) rides the one-hot planes as column 4.
+    (char_off[c]) rides the per-char table as column 4.
 
     Doc tracking (compute_ms_pml.cpp:288-340,625-682) reuses jidx
     unchanged: doc ids also change only on jumps — docs = jump_d[jidx].
@@ -861,13 +850,13 @@ def make_blockbits_ms_step_fn(meta: BitMeta, mode: str, use_doc: bool):
     probe = _make_probe_fn(meta, need_ms=True)
     EMPTY = 2 * meta.r
 
-    def step(ix: BitArrays, carry, qc, planes):
+    def step(ix: BitArrays, carry, qc, ctab):
         if ms:
             pos, jidx, d = carry
         else:
             pos, length, jidx = carry
         i32 = jnp.int32
-        pr = probe(ix, pos, qc, planes)
+        pr = probe(ix, pos, qc, ctab)
         msrow, off, rk = pr["msrow"], pr["off"], pr["rk"]
         B = pos.shape[0]
 
@@ -891,7 +880,7 @@ def make_blockbits_ms_step_fn(meta: BitMeta, mode: str, use_doc: bool):
         k_local = rc_sel + jnp.sum(jax.lax.population_count(mb),
                                    axis=1).astype(i32)
 
-        base = pr["acc"][:, 4].astype(i32)     # char_off[c] (planes col 4)
+        base = pr["acc"][:, 4].astype(i32)     # char_off[c] (table col 4)
         jdown = 2 * (base + k_local)
         if pr["is_tq"] is not None:
             jdown = jnp.where(pr["is_tq"], 2 * meta.term_runidx, jdown)

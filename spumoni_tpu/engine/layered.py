@@ -1,15 +1,15 @@
 """Layered (multi-way B+-tree style) index layout — engine v2.
 
-Motivation (measured on TPU v5e): XLA lowers 1-element random gathers poorly
-(~100us per [8k]-lane gather round), while a 16-32-wide contiguous row gather
-costs about half that. The per-character binary search of engine v1
-(log2(R_c) ~ 18-27 dependent scalar probes per step) is therefore replaced by
-a NODE-ary layered search:
+Motivation: a dependent 1-element random gather per probe is the expensive
+part of a step, and a 16-64-wide contiguous row gather costs little more than
+one element. The per-character binary search of engine v1 (log2(R_c) ~ 18-27
+dependent scalar probes per step) is therefore replaced by a NODE-ary
+layered search:
 
   level t of char c holds every NODE^t-th run-start of c, padded with the
   sentinel n to whole NODE-entry rows. Searching descends
   D = ceil(log_NODE(R_c)) levels; each level is ONE row gather + a NODE-wide
-  compare-count (VPU).
+  compare-count.
 
 Per-run fields are packed so ONE row gather provides exactly what a step
 consumes: row k+1 = [start_k, len_k, cum_k, thr_{k+1}(, esamp_k, ssamp_{k+1},
@@ -18,7 +18,7 @@ jump-down targets. Per-char scalars (F, cnt, lo0, hi0, level row offsets)
 pack into one [256, 16] "charmeta" row gather.
 
 Per step: 1 charmeta + D level + 1 field row-gathers
-(vs ~28 scalar gathers for engine v1; measured ~7x faster end to end).
+(vs ~28 scalar gathers for engine v1).
 """
 
 from __future__ import annotations
@@ -38,10 +38,9 @@ class LayeredArrays(NamedTuple):
     levels: Tuple[jnp.ndarray, ...]  # D arrays [rows_t, NODE]
     fields: jnp.ndarray              # [rp, W]: row k+1 = run k + next-run data
     text: Optional[jnp.ndarray]      # [nt] u8 (MS extension)
-    # per-char fused matrix (charmeta ++ root level row), split into exact
-    # 16-bit f32 planes so the per-char lookups run on the MXU as one-hot
-    # matmuls instead of gathers (see make_layered_step_fn)
-    rootmat_planes: Optional[Tuple[jnp.ndarray, ...]]  # each [256, 16+NODE] f32
+    # per-char fused table (charmeta ++ root level row): one row gather
+    # yields every per-char constant plus the root search node
+    rootmat: Optional[jnp.ndarray]   # [256, 16+NODE] int64
     n: jnp.ndarray
     last_run_sample: jnp.ndarray
     last_run_edoc: jnp.ndarray
@@ -56,13 +55,13 @@ class LayeredMeta(NamedTuple):
     has_samples: bool
     has_doc: bool
     has_text: bool
-    fused_root: bool = False  # per-char lookups via one-hot MXU matmul
+    fused_root: bool = False  # per-char lookups via the fused rootmat row
     group: int = 1            # field rows grouped G runs per physical row
-    # ICI index sharding (SURVEY §2.2 "gather across shards ≈ TP"): when set,
+    # index sharding (SURVEY §2.2 "gather across shards ≈ TP"): when set,
     # the step runs inside a shard_map whose `tp_axis` mesh axis shards the
     # `fields` table by rows — each device holds rows [s*R_loc, (s+1)*R_loc)
     # and a probe becomes owner-masked local gather + psum over the axis.
-    # Used when the packed index exceeds a single chip's HBM (the reference
+    # Used when the packed index exceeds one device's memory (the reference
     # has no analog: its index always fits host RAM, thresholds_ds.hpp).
     tp_axis: Optional[str] = None
 
@@ -72,11 +71,10 @@ class LayeredMeta(NamedTuple):
 F_START, F_LEN, F_CUM, F_THR, F_ESAMP, F_SSAMP, F_EDOC, F_SDOC = range(8)
 
 
-# XLA's TPU gather slows ~5x once a table exceeds ~2^17 rows (measured on
-# v5e: 131k-row tables gather at ~2ns/row/lane, 262k+ rows at ~13ns/row,
-# independent of row WIDTH or total bytes). Tables bigger than this are
-# therefore stored with GROUP runs packed per physical row and the target
-# selected in-register after the gather.
+# Row gathers slowed sharply past ~2^17 rows on the earlier target,
+# independent of row width, so tables bigger than this are stored with GROUP
+# runs packed per physical row and the target selected in-register after the
+# gather. Whether the step exists on the GPU is ROADMAP design item 4.
 GATHER_ROW_CLIFF = 1 << 17
 FIELD_GROUP = 16
 
@@ -149,7 +147,7 @@ def build_layered(idx, want_samples=None, want_doc=None, want_text=None,
     W = 8 if (want_samples or want_doc) else 4
     r = int(idx.r)
     # rows 0..r fit. Power-of-two padding buckets compile shapes across
-    # indexes, but past 2^20 rows it can waste nearly 2x the dominant HBM
+    # indexes, but past 2^20 rows it can waste nearly 2x the dominant device
     # array (8.6 vs 4.8 GB at r = 1.5e8) — large tables pad to the next
     # 2^20 multiple instead (same compile-cache bucketing granularity).
     if r < (1 << 20):
@@ -178,43 +176,32 @@ def build_layered(idx, want_samples=None, want_doc=None, want_text=None,
         fields[1:r + 1, F_EDOC] = ed
         fields[:r, F_SDOC] = sd
 
-    from ..utils import device_put_chunked
-
     text = None
     if want_text and idx.text is not None:
         t_ = np.asarray(idx.text, dtype=np.uint8)
         tp = max(1, 1 << (len(t_) - 1).bit_length())
         if tp != len(t_):
             t_ = np.concatenate([t_, np.zeros(tp - len(t_), dtype=np.uint8)])
-        text = device_put_chunked(t_)     # >1 GB at genome scale
+        text = jax.device_put(t_)
 
-    # fused per-char matrix: charmeta ++ root-level row (rank is always 0 at
-    # the root, so the root row is a pure function of the char). Split into
-    # 8-bit planes: integers < 256 are exactly representable in bf16, so the
-    # one-hot matmul reproduces the ints exactly even at the MXU's default
-    # bf16 compute precision (16-bit planes silently lose bits on TPU).
-    rootmat_planes = None
+    # fused per-char table: charmeta ++ root-level row (rank is always 0 at
+    # the root, so the root row is a pure function of the char)
     root_rows = np.zeros((256, node), dtype=np.int64)
     lvl = levels[D - 1].astype(np.int64)
     for c in range(256):
         root_rows[c] = lvl[rowoffs[D - 1, c]]
-    n_planes = max(1, -(-int(max(n, 1)).bit_length() // 8))
-    if fuse_root:
-        mat = np.concatenate([charmeta, root_rows], axis=1)  # [256, 16+node]
-        rootmat_planes = tuple(
-            jnp.asarray(((mat >> (8 * p)) & 0xFF).astype(np.float32))
-            for p in range(n_planes))
+    rootmat = (jnp.asarray(np.concatenate([charmeta, root_rows], axis=1))
+               if fuse_root else None)
 
     if group > 1:
         fields = fields.reshape(rp // group, group * W)
 
     arrays = LayeredArrays(
-        rootmat_planes=rootmat_planes,
+        rootmat=rootmat,
         charmeta=jnp.asarray(charmeta.astype(dtype)),
-        levels=tuple(device_put_chunked(np.ascontiguousarray(lv))
+        levels=tuple(jax.device_put(np.ascontiguousarray(lv))
                      for lv in levels),
-        fields=device_put_chunked(
-            np.ascontiguousarray(fields.astype(dtype))),
+        fields=jax.device_put(np.ascontiguousarray(fields.astype(dtype))),
         text=text,
         n=jnp.asarray(np.asarray(n, dtype=dtype)),
         last_run_sample=jnp.asarray(np.asarray(idx.last_run_sample, dtype=dtype)),
@@ -226,7 +213,6 @@ def build_layered(idx, want_samples=None, want_doc=None, want_text=None,
                        has_text=text is not None, fused_root=fuse_root,
                        group=group)
     host = LayeredHost(charmeta_np=charmeta, root_np=root_rows,
-                       n_planes=n_planes,
                        index_chars=tuple(int(c) for c in range(256)
                                          if runs_per_char[c] > 0))
     return arrays, meta, host
@@ -234,31 +220,28 @@ def build_layered(idx, want_samples=None, want_doc=None, want_text=None,
 
 class LayeredHost:
     """Host-side companion data for the reduced-alphabet fused lookup:
-    reads are rank-mapped on the host so the one-hot MXU matmul shrinks from
-    256-wide to |alphabet|-wide (padded to a multiple of 16)."""
+    reads are rank-mapped on the host so the per-char table shrinks from
+    256 rows to |alphabet| rows (padded to a multiple of 16)."""
 
-    def __init__(self, charmeta_np, root_np, n_planes, index_chars):
+    def __init__(self, charmeta_np, root_np, index_chars):
         self.charmeta_np = charmeta_np      # [256, 16] int64
         self.root_np = root_np              # [256, NODE] int64
-        self.n_planes = n_planes
         self.index_chars = index_chars
-        self._plane_cache = {}
+        self._table_cache = {}
 
-    def planes_for_alphabet(self, alphabet: tuple):
-        """Device planes [sigma_pad, 16+NODE] f32 for the given char tuple."""
+    def table_for_alphabet(self, alphabet: tuple):
+        """Device [sigma_pad, 16+NODE] int64 table for the given char tuple."""
         key = alphabet
-        if key in self._plane_cache:
-            return self._plane_cache[key]
+        if key in self._table_cache:
+            return self._table_cache[key]
         sigma = len(alphabet)
         sigma_pad = max(16, -(-sigma // 16) * 16)
         mat = np.zeros((sigma_pad, 16 + self.root_np.shape[1]), dtype=np.int64)
         mat[:sigma, :16] = self.charmeta_np[list(alphabet)]
         mat[:sigma, 16:] = self.root_np[list(alphabet)]
-        planes = tuple(
-            jnp.asarray(((mat >> (8 * p)) & 0xFF).astype(np.float32))
-            for p in range(self.n_planes))
-        self._plane_cache[key] = planes
-        return planes
+        ctab = jnp.asarray(mat)
+        self._table_cache[key] = ctab
+        return ctab
 
     def rank_map(self, alphabet: tuple) -> np.ndarray:
         amap = np.zeros(256, dtype=np.uint8)
@@ -275,25 +258,17 @@ def make_layered_step_fn(meta: LayeredMeta, mode: str, use_doc: bool):
     fused = meta.fused_root
     G = meta.group
 
-    def step(ix: LayeredArrays, carry, chars, planes=None):
-        """chars are raw bytes, unless `planes` (reduced-alphabet matrices)
-        is given — then chars are alphabet ranks < planes[0].shape[0]."""
+    def step(ix: LayeredArrays, carry, chars, ctab=None):
+        """chars are raw bytes, unless `ctab` (a reduced-alphabet table)
+        is given — then chars are alphabet ranks < ctab.shape[0]."""
         pos, length, sample, doc = carry
         dt = pos.dtype
         c = chars.astype(dt)
 
-        if planes is not None or fused:
-            # per-char lookups on the MXU: one-hot @ (charmeta ++ root row),
-            # reassembled exactly from 16-bit f32 planes
-            mats = planes if planes is not None else ix.rootmat_planes
-            sigma = mats[0].shape[0]
-            onehot = (c[:, None] == jnp.arange(sigma, dtype=dt)[None, :]
-                      ).astype(jnp.float32)
-            acc = jnp.zeros((pos.shape[0], mats[0].shape[1]), dtype=dt)
-            for p, plane in enumerate(mats):
-                part = jnp.dot(onehot, plane,
-                               preferred_element_type=jnp.float32)
-                acc = acc + (part.astype(dt) << (8 * p))
+        if ctab is not None or fused:
+            # per-char lookups: one gather of (charmeta ++ root row)
+            tab = ctab if ctab is not None else ix.rootmat
+            acc = tab[chars.astype(jnp.int32)].astype(dt)
             cm = acc[:, :16]
             root_row = acc[:, 16:]
         else:
@@ -331,7 +306,7 @@ def make_layered_step_fn(meta: LayeredMeta, mode: str, use_doc: bool):
         probe = jnp.clip(jnp.where(valid_k, k + 1, lo0), 0, rp - 1)
         prow = probe // G if G > 1 else probe
         if tp:
-            # ICI-sharded fields: the owner shard gathers the row locally,
+            # sharded fields: the owner shard gathers the row locally,
             # every other shard contributes zeros, psum over the tp axis
             # reassembles the row on all shards (lanes stay replicated
             # along tp, so the scan carry never diverges across shards).

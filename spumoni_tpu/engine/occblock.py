@@ -38,8 +38,8 @@ the host realigns (PML lengths resolve in-step and do not lag).
 
 Memory is O(n) int32 words (~5 bytes/base for PML) versus v2's O(r) — the
 right trade when n fits HBM comfortably; `eligible()` gates selection.
-Row count n/128 stays under the ~2^17-row gather cliff for n <= 16.7M
-(see layered.py GATHER_ROW_CLIFF); larger references use engine v2.
+Row count n/128 stays under the 2^17-row ROW_CLIFF for n <= 16.7M (see
+layered.py GATHER_ROW_CLIFF); larger references use engine v2.
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ class OccMeta(NamedTuple):
 
 def eligible(idx, max_n: int = DEFAULT_P * ROW_CLIFF) -> bool:
     """True when the occ-block layout applies: alphabet fits 4-bit packing
-    and the block count stays under the TPU gather row-count cliff."""
+    and the block count stays under the gather row-count cliff."""
     sigma = int(np.count_nonzero(np.asarray(idx.cnt)))
     return sigma <= MAX_SIGMA and int(idx.n) <= max_n
 
@@ -192,9 +192,8 @@ def build_occblock(idx, want_samples=None, want_doc=None, want_text=None,
 
 
 class OccHost:
-    """Host companion: per-batch query-rank mapping + per-char constant
-    matrices, split into exact 8-bit f32 planes for the MXU one-hot lookup
-    (same exactness trick as layered.py — ints < 256 are exact in bf16)."""
+    """Host companion: per-batch query-rank mapping + the per-char constant
+    table gathered once per step by the occ-block and block-bits engines."""
 
     COLS = 5  # c_blk, empty, Fb, Fnext, run_base
 
@@ -209,11 +208,14 @@ class OccHost:
         # col 4: char_off[char of code rk] — the char-grouped run-table base
         # used by the v4-MS jump indexing (0 when the engine doesn't need it)
         self.runbase_sigma = runbase_sigma
-        self._plane_cache = {}
+        self._table_cache = {}
 
-    def planes_for_alphabet(self, alphabet: tuple):
-        if alphabet in self._plane_cache:
-            return self._plane_cache[alphabet]
+    def table_for_alphabet(self, alphabet: tuple):
+        """Device [sigma_pad, COLS] int64 per-char constants, row i for the
+        query rank of alphabet[i]. Rows pad to a multiple of 16 so batches
+        with slightly different alphabets share one compiled step."""
+        if alphabet in self._table_cache:
+            return self._table_cache[alphabet]
         sigma_q = len(alphabet)
         sq = max(16, -(-sigma_q // 16) * 16)
         mat = np.zeros((sq, self.COLS), dtype=np.int64)
@@ -225,12 +227,9 @@ class OccHost:
             mat[i, 3] = 0 if rk == MAX_SIGMA else self.Fnext_sigma[rk]
             if self.runbase_sigma is not None and rk < len(self.runbase_sigma):
                 mat[i, 4] = self.runbase_sigma[rk]
-        n_planes = max(1, -(-int(mat.max() + 1).bit_length() // 8))
-        planes = tuple(
-            jnp.asarray(((mat >> (8 * p)) & 0xFF).astype(np.float32))
-            for p in range(n_planes))
-        self._plane_cache[alphabet] = planes
-        return planes
+        ctab = jnp.asarray(mat)
+        self._table_cache[alphabet] = ctab
+        return ctab
 
     def rank_map(self, alphabet: tuple) -> np.ndarray:
         amap = np.zeros(256, dtype=np.uint8)
@@ -263,7 +262,7 @@ def make_occ_step_fn(meta: OccMeta, mode: str, use_doc: bool):
     """One pipelined backward step. carry: see occ_initial_state. Emits
     (val, doc): val = PML length (in-step) or MS sample (lagged one
     iteration); doc lags one iteration. chars must be QUERY-rank mapped;
-    `planes` are OccHost.planes_for_alphabet matrices."""
+    `ctab` is OccHost.table_for_alphabet's table."""
     ms = mode == "ms"
     P = meta.P
     logP = int(math.log2(P))
@@ -274,20 +273,15 @@ def make_occ_step_fn(meta: OccMeta, mode: str, use_doc: bool):
     E0 = S0 + P
     D0 = T0 + P + (2 * P if meta.has_samples else 0)
 
-    def step(ix: OccArrays, carry, qc, planes):
+    def step(ix: OccArrays, carry, qc, ctab):
         (cand, prev_p, pending, forced, length,
          sample_prev, was_match, was_empty, doc_prev) = carry
         dt = cand.dtype
         B = cand.shape[0]
 
-        # per-char constants via one-hot MXU matmul on 8-bit planes
-        sq = planes[0].shape[0]
-        onehot = (qc.astype(dt)[:, None] == jnp.arange(sq, dtype=dt)[None, :]
-                  ).astype(jnp.float32)
-        acc = jnp.zeros((B, planes[0].shape[1]), dtype=dt)
-        for p, plane in enumerate(planes):
-            part = jnp.dot(onehot, plane, preferred_element_type=jnp.float32)
-            acc = acc + (part.astype(dt) << (8 * p))
+        # per-char constants: one gather from the [sigma_pad, COLS] table
+        # (query ranks are < sigma_pad by construction)
+        acc = ctab[qc.astype(jnp.int32)].astype(dt)
         c_blk, empty_i, Fb, Fnext = acc[:, 0], acc[:, 1], acc[:, 2], acc[:, 3]
         empty = empty_i == 1
 

@@ -1,7 +1,7 @@
 """Dense HBM-oriented index format.
 
 Instead of the reference's Elias-Fano bitvectors + Huffman-shaped wavelet tree
-(ms_rle_string.hpp, thresholds_ds.hpp), the TPU index is a set of flat arrays
+(ms_rle_string.hpp, thresholds_ds.hpp), the device index is a set of flat arrays
 grouped by character, so that rank/select/threshold/sample lookups in the
 MS/PML recurrence each become one binary search + O(1) gathers:
 
@@ -17,8 +17,8 @@ MS/PML recurrence each become one binary search + O(1) gathers:
   c_sdoc[r]     # start doc ids             [doc array only]
   c_edoc[r]     # end doc ids               [doc array only]
   text[n-1]     # the indexed text          [MS index only — replaces the SLP
-                #  random-access structure of compute_ms_pml.cpp:769-774; plain
-                #  HBM-resident text + gathers beat grammar decompression on TPU]
+                #  random-access structure of compute_ms_pml.cpp:769-774: plain
+                #  device-resident text read by gathers]
 
 Serialized as a .npz + JSON manifest; the serialized index is the checkpoint
 (mirrors the serialize/load pairs of compute_ms_pml.cpp:192-229,517-562).

@@ -131,8 +131,8 @@ def iter_general_reads(path: str, chunk_bytes: int = 1 << 20):
 
 def batch_iter(items, batch_bases: int = 100_000):
     """Groups reads into batches of roughly `batch_bases` total bases —
-    the TPU-side analog of BatchLoader's ~1000-base work units
-    (batch_loader.cpp:26-76); larger because one batch feeds a whole chip."""
+    the device-side analog of BatchLoader's ~1000-base work units
+    (batch_loader.cpp:26-76); larger because one batch feeds a whole GPU."""
     batch, acc = [], 0
     for item in items:
         batch.append(item)

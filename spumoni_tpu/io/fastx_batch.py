@@ -1,9 +1,9 @@
 """Array-native FASTA/FASTQ batch reader.
 
 The role of the reference's threaded BatchLoader (batch_loader.cpp:26-76) at
-TPU feed rates: the per-record Python reader (io/fasta.py) tops out around
-~100k reads/s — far under the classify kernel — so the production streaming
-path parses WHOLE FILE CHUNKS with numpy instead: newline positions via one
+device feed rates: the per-record Python reader (io/fasta.py) is far slower
+than the classify kernel, so the production streaming path parses WHOLE FILE
+CHUNKS with numpy instead: newline positions via one
 vectorized compare, sequence bytes extracted with one boolean gather, record
 offsets by a grouped line-length sum. Per-read Python survives only for id
 strings (a C-speed slice per record).

@@ -185,8 +185,8 @@ def digest(seq: bytes, use_promotions: bool, use_dna_letters: bool,
 
 # ---------------------------------------------------------------------------
 # batched digestion over a whole PackedReads batch (one pass of whole-array
-# ops instead of ~10 small numpy ops per read — the per-read loop capped the
-# production file->report path at ~13k reads/s, VERDICT r3 missing #1)
+# ops instead of ~10 small numpy ops per read, which bounded the production
+# file->report path)
 # ---------------------------------------------------------------------------
 
 def digest_packed(p, use_promotions: bool, use_dna_letters: bool,

@@ -5,7 +5,7 @@ helper executables (Big-BWT, pfp_thresholds — /root/reference/src/spumoni.cpp:
 with an in-process build, and provides the multithreaded CPU query baseline.
 
 The shared object is compiled on demand with g++ and cached next to this file,
-keyed by a hash of the source.
+keyed by a hash of the source and of the CPU target it was built for.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import threading
 
@@ -27,11 +28,24 @@ _lock = threading.Lock()
 _lib = None
 
 
+def _target() -> bytes:
+    """What `-march=native` means on this machine: the architecture plus
+    the compiler's expansion of the flag. A `_build/` copied to a host with
+    another CPU must not reuse a library built with instructions it lacks."""
+    out = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                         check=True, capture_output=True).stdout
+    return platform.machine().encode() + b"\0" + out
+
+
+def _so_path(src: bytes, target: bytes) -> str:
+    tag = hashlib.sha256(src + b"\0" + target).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libspumoni_native_{tag}.so")
+
+
 def _compile() -> str:
     with open(_SRC, "rb") as f:
         src = f.read()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    so_path = os.path.join(_BUILD_DIR, f"libspumoni_native_{tag}.so")
+    so_path = _so_path(src, _target())
     if os.path.exists(so_path):
         return so_path
     os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -398,7 +412,7 @@ class NativeQueryEngine:
     """Multithreaded CPU MS/PML query engine over the dense run tables.
 
     Mirrors the reference hot loops exactly; used both as the measured CPU
-    baseline and as the oracle for the JAX/TPU engines.
+    baseline and as the oracle for the JAX engines.
     """
 
     def __init__(self, n, run_heads, run_starts, thresholds, samples_start,

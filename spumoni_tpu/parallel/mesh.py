@@ -1,7 +1,7 @@
 """Scale-out layer: data-parallel querying over a jax.sharding.Mesh.
 
 The reference's only parallelism is OpenMP threads over read batches
-(compute_ms_pml.cpp:894,1082). The TPU-native equivalent (SURVEY.md §2.2):
+(compute_ms_pml.cpp:894,1082). The device equivalent (SURVEY.md §2.2):
 
   * the index arrays are REPLICATED across the mesh (they are the "weights");
   * read batches are sharded along the 'data' axis (each device runs the
@@ -10,9 +10,9 @@ The reference's only parallelism is OpenMP threads over read batches
     only per-read summaries (or, when requested, the full value matrix)
     return to the host.
 
-The same code path runs on one chip (trivial mesh), a multi-chip host, or —
-with jax.distributed — a multi-host pod slice, since pjit + NamedSharding
-compile to the appropriate ICI/DCN collectives automatically.
+The same code path runs on one GPU (trivial mesh), a multi-GPU host, or —
+with jax.distributed — several hosts, since pjit + NamedSharding compile to
+the collectives (NCCL on GPUs) automatically.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ def _dtype_of(ix):
     return (ix.fields if hasattr(ix, "fields") else ix.c_start).dtype
 
 
-def _takes_planes(ix) -> bool:
+def _takes_ctab(ix) -> bool:
     return (hasattr(ix, "bblocks") or hasattr(ix, "blocks")
             or hasattr(ix, "fields"))
 
@@ -76,9 +76,9 @@ def _initial_core(ix, B, dt):
 
 
 def _fused_classify_core(ix, reads_rev, lens, max_value_thr, meta,
-                         mode: str, r: int, bin_width: int, planes=None):
+                         mode: str, r: int, bin_width: int, ctab=None):
     """Unjitted body of fused_classify_kernel — also runs inside the
-    shard_map of the ICI-sharded-index (TP) path below."""
+    shard_map of the sharded-index (TP) path (parallel/tp.py)."""
     B, L = reads_rev.shape
     dt = _dtype_of(ix)
     step = _step_fn_for(ix, meta, mode, False, r)
@@ -96,7 +96,7 @@ def _fused_classify_core(ix, reads_rev, lens, max_value_thr, meta,
         ch, i = x
         (core, prev_b, cur_max, above, below, summ) = carry
         if occ or hasattr(ix, "fields"):
-            core, (val, _) = step(ix, core, ch, planes)
+            core, (val, _) = step(ix, core, ch, ctab)
         else:
             core, (val, _) = step(ix, core, ch)
         fwd = lens - 1 - i
@@ -126,17 +126,17 @@ def _fused_classify_core(ix, reads_rev, lens, max_value_thr, meta,
 @functools.partial(
     jax.jit, static_argnames=("meta", "mode", "r", "bin_width"))
 def fused_classify_kernel(ix, reads_rev, lens, max_value_thr, meta,
-                          mode: str, r: int, bin_width: int, planes=None):
+                          mode: str, r: int, bin_width: int, ctab=None):
     """Scan + classification fully fused: the windowed bin-max statistics of
     compute_ms_pml.cpp:975-995 are folded into the scan carry (bins appear in
     decreasing order as the read is processed right-to-left; a bin closes
     when the per-lane window id changes), so no [B, L] value matrix is
     materialized or post-processed. Returns per-read
     (found, above, below, sum_maxes) only — the O(B) summary that leaves the
-    chip in classify-only mode.
+    device in classify-only mode.
     """
     return _fused_classify_core(ix, reads_rev, lens, max_value_thr, meta,
-                                mode, r, bin_width, planes)
+                                mode, r, bin_width, ctab)
 
 
 @functools.partial(
@@ -144,7 +144,7 @@ def fused_classify_kernel(ix, reads_rev, lens, max_value_thr, meta,
     static_argnames=("meta", "mode", "use_doc", "r", "bin_width", "max_bins"))
 def sharded_classify_kernel(ix: IndexArrays, reads_rev, lens, max_value_thr,
                             meta: IndexMeta, mode: str, use_doc: bool, r: int,
-                            bin_width: int, max_bins: int, planes=None):
+                            bin_width: int, max_bins: int, ctab=None):
     """Full device-side PML pipeline for one sharded batch: lockstep scan ->
     per-lane bin-max classification -> global psum of found counts.
 
@@ -160,7 +160,7 @@ def sharded_classify_kernel(ix: IndexArrays, reads_rev, lens, max_value_thr,
 
     core0 = _initial_core(ix, B, dt)
     if occ:
-        body = lambda carry, ch: step(ix, carry, ch, planes)
+        body = lambda carry, ch: step(ix, carry, ch, ctab)
     else:
         body = lambda carry, ch: step(ix, carry, ch)
     _, (vals, docs) = jax.lax.scan(body, core0, reads_rev.T)
@@ -202,7 +202,7 @@ class ShardedPmlClassifier:
         self.axis = axis
         self.arrays = replicate_index(arrays, mesh)
         self.meta = meta
-        self.host = host  # Layered/OccHost: enables per-char plane matrices
+        self.host = host  # Layered/OccHost: enables the per-char tables
         self.occ = hasattr(arrays, "blocks") or hasattr(arrays, "bblocks")
         if self.occ and host is None:
             raise ValueError("occ/block-bits engines require their OccHost")
@@ -227,34 +227,34 @@ class ShardedPmlClassifier:
             B = ((B // self.ndev) + 1) * self.ndev
         _, rev, lens = encode_rows(reads, B, L, want_fwd=False)
 
-        planes = None
+        ctab = None
         if self.occ:
             # occ-block reads are always query-rank mapped
             alphabet = tuple(sorted(
                 {0} | set(int(x) for x in present_chars(rev))))
             rev = self.host.rank_map(alphabet)[rev]
-            planes = replicate_index(
-                self.host.planes_for_alphabet(alphabet), self.mesh)
+            ctab = replicate_index(
+                self.host.table_for_alphabet(alphabet), self.mesh)
         elif (not want_values and self.host is not None
                 and hasattr(self.arrays, "fields")):
             # reduced-alphabet fused lookup (rank-mapped reads) — only the
-            # fused kernel below accepts planes
+            # fused kernel below accepts ctab
             alphabet = tuple(sorted(
                 set(self.host.index_chars)
                 | set(int(x) for x in present_chars(rev)) | {0}))
             rev = self.host.rank_map(alphabet)[rev]
-            planes = replicate_index(
-                self.host.planes_for_alphabet(alphabet), self.mesh)
+            ctab = replicate_index(
+                self.host.table_for_alphabet(alphabet), self.mesh)
 
         shard = NamedSharding(self.mesh, P(self.axis, None))
         shard1 = NamedSharding(self.mesh, P(self.axis))
         rev_d = jax.device_put(jnp.asarray(rev), shard)
         lens_d = jax.device_put(jnp.asarray(lens), shard1)
         if not want_values:
-            # classify-only: fused scan+binmax kernel, O(B) leaves the chips
+            # classify-only: fused scan+binmax kernel, O(B) leaves the devices
             found, above, below, sums = fused_classify_kernel(
                 self.arrays, rev_d, lens_d, self.max_value_thr, self.meta,
-                "pml", self.r, self.bin_width, planes)
+                "pml", self.r, self.bin_width, ctab)
             return {
                 "found": np.asarray(found)[:nreads],
                 "above": np.asarray(above)[:nreads],
@@ -265,7 +265,7 @@ class ShardedPmlClassifier:
         max_bins = max(1, -(-L // self.bin_width))
         vals, _, found, above, below, sums, total = sharded_classify_kernel(
             self.arrays, rev_d, lens_d, self.max_value_thr, self.meta, "pml",
-            False, self.r, self.bin_width, max_bins, planes)
+            False, self.r, self.bin_width, max_bins, ctab)
         out = {
             "found": np.asarray(found)[:nreads],
             "above": np.asarray(above)[:nreads],

@@ -1,10 +1,10 @@
-"""ICI-sharded index ("tensor parallel") querying — SURVEY §2.2.
+"""Sharded-index ("tensor parallel") querying — SURVEY §2.2.
 
 The reference's index always fits host RAM (sdsl structures, loaded whole in
-`pml_t`/`ms_t`, compute_ms_pml.cpp:694-838). On TPU the packed `fields` table
-of a human-pangenome index (r ≈ 1e8 runs × 8 slots × 8 B ≈ 6.4 GB, plus text
-for MS mode) can exceed one chip's HBM — the TPU-native answer is to shard
-the dominant table by rows over an ICI mesh axis and turn each probe into an
+`pml_t`/`ms_t`, compute_ms_pml.cpp:694-838). On a device the packed `fields`
+table of a human-pangenome index (r ≈ 1e8 runs × 8 slots × 8 B ≈ 6.4 GB, plus
+text for MS mode) can exceed one card's memory — the answer is to shard the
+dominant table by rows over a mesh axis and turn each probe into an
 owner-masked local gather + `psum` (the all-to-all row exchange pattern).
 
 Implemented with `shard_map` rather than pjit sharding constraints so the
@@ -15,50 +15,31 @@ which silently reinstates the replicated footprint).
 Mesh layout: 2-D ("data", "model") — read lanes shard over "data", the
 `fields` table shards over "model", and every lane's scan carry stays
 replicated along "model" (the psum keeps all model shards in lockstep).
-Bandwidth cost: one [B_local, G·W] psum per scan step over ICI.
+Bandwidth cost: one [B_local, G·W] psum per scan step.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-import inspect
-
-try:  # JAX >= 0.4.35
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older JAX
-    from jax.experimental.shard_map import shard_map
-
-# Older shard_map spells the replication-check kwarg `check_rep`.
-_SM_CHECK_KW = ("check_vma"
-                if "check_vma" in inspect.signature(shard_map).parameters
-                else "check_rep")
 
 from ..engine.layered import F_START, LayeredArrays, LayeredMeta
 from .mesh import _fused_classify_core, replicate_index
-from ..utils import encode_rows, present_chars
+from ..utils import encode_rows, log, present_chars
 
 
 def make_tp_mesh(n_data: int, n_model: int, devices=None) -> Mesh:
+    """(data, model) mesh over the first n_data * n_model devices. The
+    cards of one host are joined all to all, so the device order is the
+    algorithm's alone: a plain reshape."""
     devices = devices if devices is not None else jax.devices()
-    assert len(devices) >= n_data * n_model, (len(devices), n_data, n_model)
-    if devices is not None and len(devices) != n_data * n_model:
-        devices = devices[:n_data * n_model]
-    try:
-        # Physical placement: the per-step [B_local, G*W] psum rides the
-        # `model` axis every scan step, so that axis must map to
-        # ICI-adjacent chips. create_device_mesh solves the assignment from
-        # the device coordinates; a naive reshape of jax.devices() does not.
-        from jax.experimental import mesh_utils
-        grid = mesh_utils.create_device_mesh((n_data, n_model),
-                                             devices=devices)
-    except Exception:  # virtual/CPU devices without coords
-        grid = np.asarray(devices).reshape(n_data, n_model)
+    if len(devices) < n_data * n_model:
+        raise ValueError(f"a {n_data}x{n_model} mesh needs "
+                         f"{n_data * n_model} devices, have {len(devices)}")
+    grid = np.asarray(devices[:n_data * n_model]).reshape(n_data, n_model)
     return Mesh(grid, ("data", "model"))
 
 
@@ -94,7 +75,7 @@ def shard_index_tp_bits(arrays, meta, mesh: Mesh, model_axis: str = "model"):
     `model_axis` (zero-padded to a multiple of the axis size — pad rows map
     to positions >= n and are never gathered), everything else replicated.
     One [B, W] psum per step reassembles the single gathered row — v4's
-    one-probe step makes this the cheap TP path (VERDICT r3 #4)."""
+    one-probe step makes this the cheap TP path."""
     S = mesh.shape[model_axis]
     bb = np.asarray(arrays.bblocks)
     rows = bb.shape[0]
@@ -110,8 +91,8 @@ def shard_index_tp_bits(arrays, meta, mesh: Mesh, model_axis: str = "model"):
 
 
 class TpPmlClassifier:
-    """PML classification with the index sharded over ICI (layered or
-    block-bits engine).
+    """PML classification with the index sharded over the 'model' axis
+    (layered or block-bits engine).
 
     Same classify-only contract as ShardedPmlClassifier(want_values=False):
     per-read (found, above, below, sum_maxes) summaries leave the mesh."""
@@ -121,7 +102,7 @@ class TpPmlClassifier:
                  data_axis: str = "data", model_axis: str = "model"):
         self.bits = hasattr(arrays, "bblocks")
         assert self.bits or hasattr(arrays, "fields"), \
-            "ICI index sharding: layered or block-bits engines only"
+            "index sharding: layered or block-bits engines only"
         self.mesh = mesh
         self.data_axis, self.model_axis = data_axis, model_axis
         self.host = host
@@ -141,16 +122,16 @@ class TpPmlClassifier:
         self.n_data = mesh.shape[data_axis]
         self._fn_cache = {}
 
-    def _classify_fn(self, planes_present: bool):
-        key = planes_present
+    def _classify_fn(self, ctab_present: bool):
+        key = ctab_present
         if key in self._fn_cache:
             return self._fn_cache[key]
         meta, r, bw = self.meta, self.n_slots, self.bin_width
         da, ma = self.data_axis, self.model_axis
 
-        def inner(ix, rev, lens, thr, planes):
+        def inner(ix, rev, lens, thr, ctab):
             return _fused_classify_core(ix, rev, lens, thr, meta, "pml",
-                                        r, bw, planes)
+                                        r, bw, ctab)
 
         ix_specs = jax.tree_util.tree_map(lambda _: P(), self.arrays)
         if self.bits:
@@ -161,7 +142,7 @@ class TpPmlClassifier:
             inner, mesh=self.mesh,
             in_specs=(ix_specs, P(da, None), P(da), P(), P()),
             out_specs=(P(da), P(da), P(da), P(da)),
-            **{_SM_CHECK_KW: False}))
+            check_vma=False))
         self._fn_cache[key] = fn
         return fn
 
@@ -176,22 +157,22 @@ class TpPmlClassifier:
             B = ((B // self.n_data) + 1) * self.n_data
         _, rev, lens = encode_rows(reads, B, L, want_fwd=False)
 
-        planes = None
+        ctab = None
         if self.host is not None:
             alphabet = tuple(sorted(
                 set(self.host.index_chars)
                 | set(int(x) for x in present_chars(rev)) | {0}))
             rev = self.host.rank_map(alphabet)[rev]
-            planes = replicate_index(
-                self.host.planes_for_alphabet(alphabet), self.mesh)
+            ctab = replicate_index(
+                self.host.table_for_alphabet(alphabet), self.mesh)
 
         rev_d = jax.device_put(
             jnp.asarray(rev), NamedSharding(self.mesh, P(self.data_axis, None)))
         lens_d = jax.device_put(
             jnp.asarray(lens), NamedSharding(self.mesh, P(self.data_axis)))
         thr = jnp.asarray(self.max_value_thr)
-        found, above, below, sums = self._classify_fn(planes is not None)(
-            self.arrays, rev_d, lens_d, thr, planes)
+        found, above, below, sums = self._classify_fn(ctab is not None)(
+            self.arrays, rev_d, lens_d, thr, ctab)
         found = np.asarray(found)[:nreads]
         return {
             "found": found,
@@ -215,9 +196,9 @@ def shard_index_tp_ms(arrays, meta, mesh: Mesh, model_axis: str = "model"):
     row-sharded over `model_axis` (identical padded row counts — the probe
     psums both rows in one message), the flat jump tables 1-D sharded, and
     `text` dropped (TpMsQuery shards its rows512 extension table
-    separately). The >HBM MS escape hatch: at GRCh38 scale the MS engine
-    is rows 4.9 GB + msrows ~3.3 GB + jump table 4.6 GB + text 6.2 GB —
-    none of it needs to be whole on any one chip."""
+    separately). The escape hatch for MS indexes past one device: at GRCh38
+    scale the MS engine is rows 4.9 GB + msrows ~3.3 GB + jump table 4.6 GB
+    + text 6.2 GB — none of it needs to be whole on any one device."""
     S = mesh.shape[model_axis]
     sh2 = NamedSharding(mesh, P(model_axis, None))
     sh1 = NamedSharding(mesh, P(model_axis))
@@ -253,7 +234,7 @@ def _tp_take_1d(table, idx, axis: str):
 
 
 class TpMsQuery:
-    """Full MS (-M) querying with the index sharded over ICI: the v4-MS
+    """Full MS (-M) querying with the index sharded over 'model': the v4-MS
     scan (one row + one msrow gather per step, psum-reassembled), the flat
     jump-table reconstruction, and the rows512 text extension all run on
     model-axis shards. Value contract of ScanEngine.query in MS mode:
@@ -305,11 +286,11 @@ class TpMsQuery:
         use_doc, nt = self.use_doc, self.nt
         step = make_blockbits_ms_step_fn(meta, "ms", use_doc)
 
-        def inner(ix, t512, rev, fwd, lens, planes):
+        def inner(ix, t512, rev, fwd, lens, ctab):
             B = rev.shape[0]
             state = ms_initial_state(ix, meta, B, "ms")
             state, (a_mat, b_mat) = jax.lax.scan(
-                lambda c, ch: step(ix, c, ch, planes), state, rev.T)
+                lambda c, ch: step(ix, c, ch, ctab), state, rev.T)
             jidx, dcr = a_mat.T, b_mat.T
             vals = (_tp_take_1d(ix.jump_t, jidx, ma)
                     - dcr.astype(ix.jump_t.dtype))
@@ -332,7 +313,7 @@ class TpMsQuery:
             in_specs=(ix_specs, P(ma, None), P(da, None), P(da, None),
                       P(da), P()),
             out_specs=(P(da, None), P(da, None), P(da, None), P(da, None)),
-            **{_SM_CHECK_KW: False}))
+            check_vma=False))
         self._fn_cache[0] = fn
         return fn
 
@@ -348,8 +329,8 @@ class TpMsQuery:
         fwd, rev, lens = encode_rows(reads, B, L)
         alphabet = tuple(sorted(
             {0} | set(int(x) for x in present_chars(rev))))
-        planes = replicate_index(
-            self.host.planes_for_alphabet(alphabet), self.mesh)
+        ctab = replicate_index(
+            self.host.table_for_alphabet(alphabet), self.mesh)
         revm = self.host.rank_map(alphabet)[rev]
         dsh = NamedSharding(self.mesh, P(self.data_axis, None))
         lsh = NamedSharding(self.mesh, P(self.data_axis))
@@ -357,7 +338,7 @@ class TpMsQuery:
             self.arrays, self.t512,
             jax.device_put(jnp.asarray(revm), dsh),
             jax.device_put(jnp.asarray(fwd), dsh),
-            jax.device_put(jnp.asarray(lens), lsh), planes)
+            jax.device_put(jnp.asarray(lens), lsh), ctab)
         vals = np.asarray(vals)
         lens_mat = np.asarray(lens_mat)
         ptrs_fwd = np.asarray(ptrs_fwd)
@@ -374,6 +355,9 @@ class TpMsQuery:
         anom = [i for i in range(nreads)
                 if lens[i] and (ptrs_fwd[i, :lens[i]] <= 0).any()]
         if anom and self.fallback is not None:
+            log("tp", f"{len(anom)} of {nreads} reads hold characters absent "
+                      f"from the index: their lengths come from the native "
+                      f"engine (reference carry semantics)")
             sub = self.fallback.query([reads[i] for i in anom])
             for j, i in enumerate(anom):
                 out["lengths"][i] = np.asarray(sub["lengths"][j])

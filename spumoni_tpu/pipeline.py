@@ -8,8 +8,10 @@ Differences from the reference by design:
   * idempotent build stages keyed by a content hash of the generated
     reference (the analog of the reference's 19-temp-file "quick build",
     spumoni.cpp:570-601);
-  * querying runs on the TPU lockstep engine by default, with the
-    multithreaded CPU engine available as a fallback/baseline.
+  * querying runs on the GPU lockstep engines by default (`device='gpu'`),
+    with the multithreaded native CPU engine as `device='cpu'` — the
+    baseline and the oracle. A missing GPU is an error, never a silent
+    switch to the host.
 """
 
 from __future__ import annotations
@@ -42,6 +44,30 @@ def log(tag: str, msg: str) -> None:
 
 #: stats of the most recent run()'s streaming loop (see run())
 LAST_RUN_STATS: dict = {}
+
+
+class DeviceUnavailable(RuntimeError):
+    """device='gpu' asked for on a process where JAX found no GPU."""
+
+
+def check_device(device: str) -> None:
+    """device='gpu' runs the JAX engines and needs JAX's GPU backend. The
+    one exception is a caller that restricted JAX to the CPU platform
+    itself (JAX_PLATFORMS=cpu, as the test suite does): the JAX engines
+    then run on the host because they were asked to. device='cpu' is the
+    native engine and needs nothing."""
+    if device == "cpu":
+        return
+    if device != "gpu":
+        raise ValueError(f"unknown device {device!r}: expected gpu or cpu")
+    import jax
+    backend = jax.default_backend()
+    if backend == "gpu" or (backend == "cpu"
+                            and jax.config.jax_platforms == "cpu"):
+        return
+    raise DeviceUnavailable(
+        f"--device gpu needs a GPU, but JAX's default backend is "
+        f"{backend!r}; use --device cpu for the native CPU engine")
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +218,7 @@ def build(cfg: BuildConfig) -> str:
         doc_start, doc_end = build_doc_arrays(raw, seq_lengths)
 
     # CPU engine used for null-DB generation (build-time self-query,
-    # spumoni.cpp:654); avoids needing a TPU at build time.
+    # spumoni.cpp:654); the build never needs the device.
     cpu_engine = NativeQueryEngine(
         raw.n, raw.run_heads, raw.run_starts, raw.thresholds,
         raw.samples_start, raw.samples_last, start_doc=doc_start,
@@ -442,11 +468,10 @@ class RunConfig:
     w: int = DEFAULT_MIN_W
     bin_size: int = DEFAULT_BIN_SIZE
     threads: int = 1
-    device: str = "tpu"       # 'tpu' | 'cpu'
-    batch_bases: int = 33_554_432  # scan cost per step is latency-floored
-                              # (~0.26 ms) regardless of lane count up to
-                              # ~131k lanes, so reads/s scales with B: feed
-                              # the chip 32k+ reads per kernel call
+    device: str = "gpu"       # 'gpu' (JAX engines) | 'cpu' (native engine)
+    batch_bases: int = 33_554_432  # bases per batch: a scan step costs
+                              # about the same at 8k or 64k lanes, so
+                              # reads/s grows with the lanes per kernel call
     resume: bool = False      # resume from the per-host read cursor
     process_index: int = 0    # multi-host read sharding (parallel.distributed)
     process_count: int = 1
@@ -457,20 +482,18 @@ class RunConfig:
                               # fused on device and only O(B) verdict
                               # summaries cross the host link (extension
                               # flag; the reference always writes values)
-    tp_devices: int = 0       # ICI-sharded index ("TP", parallel/tp.py):
+    tp_devices: int = 0       # sharded index ("TP", parallel/tp.py):
                               # >1 forces that many devices on the 'model'
                               # axis (index rows sharded, one psum/step);
                               # 0 = auto — engages when the estimated
-                              # engine footprint exceeds the per-device HBM
-                              # budget (SPN_HBM_BUDGET_GB, default 12).
-                              # Classify-only (--report-only, PML): the
-                              # >HBM escape hatch; replication is faster
-                              # whenever the index fits (PERF_NOTES).
+                              # engine footprint exceeds the per-device
+                              # memory budget (utils.hbm_budget).
+                              # Classify-only PML or -M value runs: the
+                              # escape hatch for indexes past one device.
     engine: str = "auto"      # 'auto' | 'layered' (v2) | 'occ' (v3) |
-                              # 'bits' (v4, PML-only 1-slim-gather/step).
-                              # auto: v4 when eligible for PML without doc
-                              # tracking, else v2 (v3 is kept for parts with
-                              # stronger vector units, occblock.py)
+                              # 'bits' (v4 block-bits / v4-MS).
+                              # auto: v4 when eligible, else v2; v3 only
+                              # on request (occblock.py)
 
     @property
     def mode(self) -> str:
@@ -520,7 +543,7 @@ class RunConfig:
                       and not self.use_doc)
             ms_ok = self.mode == "ms" and not self.report_only
             if not (pml_ok or ms_ok):
-                raise ValueError("--tp-devices (ICI-sharded index) supports "
+                raise ValueError("--tp-devices (sharded index) supports "
                                  "-P -c --report-only without -d "
                                  "(classify-only PML) or -M value runs")
             if self.engine == "occ":
@@ -612,11 +635,11 @@ def _make_engine(cfg: RunConfig, dense: DenseIndex, index_path=None):
 
 
 def _tp_decision(cfg: "RunConfig", dense: DenseIndex) -> int:
-    """Model-axis size for the ICI-sharded-index path: the explicit
+    """Model-axis size for the sharded-index path: the explicit
     --tp-devices, or (auto) the smallest power of two whose per-device
-    shard fits the HBM budget when the estimated engine footprint exceeds
-    it. 1 = no TP (replication is faster whenever the index fits,
-    PERF_NOTES 'ICI-sharded index')."""
+    shard fits the memory budget when the estimated engine footprint
+    exceeds it. 1 = no TP (a replicated index needs no collective per
+    step, so it is the choice whenever the index fits)."""
     pml_ok = cfg.report_only and cfg.mode == "pml" and not cfg.use_doc
     ms_ok = cfg.mode == "ms" and not cfg.report_only
     if cfg.device == "cpu" or not (pml_ok or ms_ok):
@@ -629,7 +652,12 @@ def _tp_decision(cfg: "RunConfig", dense: DenseIndex) -> int:
     ndev = len(jax.devices())
     if ndev < 2:
         return 1
-    budget = float(os.environ.get("SPN_HBM_BUDGET_GB", "12")) * 1e9
+    from .utils import hbm_budget
+    budget = hbm_budget()
+    if budget is None:
+        log("run", "the backend reports no device memory limit: "
+                   "auto-TP stays off")
+        return 1
     from .engine import blockbits
     bits_ok = cfg.engine in ("auto", "bits") and blockbits.eligible_any(dense)
     if ms_ok:
@@ -654,13 +682,13 @@ def _tp_decision(cfg: "RunConfig", dense: DenseIndex) -> int:
     while tp_n < ndev and est / tp_n > budget:
         tp_n *= 2
     log("run", f"auto TP: estimated index {est / 1e9:.1f} GB exceeds the "
-               f"{budget / 1e9:.0f} GB budget")
+               f"{budget / 1e9:.1f} GB per-device budget")
     return tp_n
 
 
 def _make_tp_engine(cfg: "RunConfig", dense: DenseIndex, tp_n: int,
                     max_value_thr: int):
-    """Engine adapter for the ICI-sharded path (parallel/tp.py): the
+    """Engine adapter for the sharded-index path (parallel/tp.py): the
     classify-only PML variant (v4 block-bits rows when eligible — ONE psum
     per step — else the layered fields table), or the full-MS value
     variant (v4-MS rows + msrows + jump tables + rows512 text, all
@@ -684,7 +712,9 @@ def _make_tp_engine(cfg: "RunConfig", dense: DenseIndex, tp_n: int,
         arrays, meta, host = blockbits.build_blockbits(
             dense, want_ms=True, want_doc=cfg.use_doc)
         # reads with index-absent chars take the reference's sequential-
-        # carry quirk (not a pure LCP): rare — served by the CPU oracle
+        # carry quirk (not a pure LCP): a semantic of the reference, not a
+        # device fallback — those rare reads are served by the native
+        # engine (TpMsQuery logs how many)
         fb = _make_engine(
             RunConfig(**{**cfg.__dict__, "device": "cpu", "tp_devices": -1}),
             dense)
@@ -710,8 +740,8 @@ def _make_tp_engine(cfg: "RunConfig", dense: DenseIndex, tp_n: int,
 
 
 def _blockbits_eligible(dense: DenseIndex) -> bool:
-    # over-cliff v4 (one ~13.6 ns gather/step) still beats v2's multi-probe
-    # step at human-genome scale, so auto-select it whenever it fits int32
+    # v4's one row gather per step against v2's multi-probe descent: auto
+    # selects v4 whenever the index fits its layout
     from .engine import blockbits
     return blockbits.eligible_any(dense)
 
@@ -770,11 +800,12 @@ def run(cfg: RunConfig) -> int:
     """Streams the query file through the engine; writes the output files.
     Returns the number of reads processed."""
     cfg.validate()
+    check_device(cfg.device)
     ext = ".bin" if cfg.use_promotions else ".fa"
     base = cfg.ref_file + ext if not cfg.is_general_text else cfg.ref_file
     index_path = base + (".thrbv.ms" if cfg.mode == "ms" else ".thrbv.spumoni")
 
-    # fast serving start (VERDICT r4 weak #4): when the engine-row cache
+    # fast serving start: when the engine-row cache
     # satisfies the mode (PML, no doc tracking), assemble the engine from
     # .bbrows.npz + its scalar manifest and skip the dense npz entirely —
     # at GRCh38 scale that load is 23 GB before the first read streams
@@ -784,10 +815,10 @@ def run(cfg: RunConfig) -> int:
             and cfg.mode == "pml" and not cfg.use_doc
             and cfg.engine in ("auto", "bits") and cfg.tp_devices <= 1):
         from .engine import blockbits
-        budget = float(os.environ.get("SPN_HBM_BUDGET_GB", "12")) * 1e9
+        from .utils import hbm_budget
         bb_fast = blockbits.load_cached(index_path + ".bbrows.npz",
                                         index_path + ".npz",
-                                        max_bytes=budget)
+                                        max_bytes=hbm_budget())
         if bb_fast is not None:
             log("run", "fast start: engine rows from cache "
                        "(dense index load skipped)")
@@ -800,7 +831,7 @@ def run(cfg: RunConfig) -> int:
         if cfg.device != "cpu":
             from .utils import device_array_footprint
             fp = device_array_footprint(eng.arrays)
-            log("run", f"index resident in HBM: "
+            log("run", f"index resident in device memory: "
                        f"{fp['__total__'] / 1e6:.1f} MB "
                        f"(n={idx_n}, r={idx_r})")
 
@@ -818,7 +849,7 @@ def run(cfg: RunConfig) -> int:
     tp_n = _tp_decision(cfg, dense) if dense is not None else 1
     if tp_n > 1:
         engine = _make_tp_engine(cfg, dense, tp_n, thr)
-        log("run", f"ICI-sharded index (TP): rows sharded over {tp_n} "
+        log("run", f"sharded index (TP): rows sharded over {tp_n} "
                    f"'model' devices, reads over the 'data' axis")
     else:
         if bb_fast is not None:
@@ -1009,8 +1040,8 @@ def run(cfg: RunConfig) -> int:
 
     # array-native fast path: vectorized chunk parsing + whole-batch
     # digestion + staged h2d run in the PREFETCH thread, so only kernel
-    # launches sit on this thread (the per-read Python prep loop below
-    # capped file->report at ~13k reads/s vs the ~258k kernel)
+    # launches sit on this thread (the per-read Python prep loop below is
+    # far slower than the kernels)
     use_fast = cfg.device != "cpu" and hasattr(engine, "stage")
     if use_fast and P > 1:
         log("run", f"staged fast path, host-stride shard {p}/{P}")

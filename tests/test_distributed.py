@@ -148,7 +148,7 @@ def test_staged_stride_resume_cursor(tmp_path, rng):
     must skip exactly that many of this host's records."""
     reads_path = _build_index(tmp_path, rng)
     rcfg = dict(ref_file=str(tmp_path / "idx"), pattern_file=reads_path,
-                pml_requested=True, min_digest=False, device="tpu")
+                pml_requested=True, min_digest=False, device="gpu")
 
     # full 2-host simulated run through the staged path (host 0 merges)
     run(RunConfig(process_index=1, process_count=2, **rcfg))

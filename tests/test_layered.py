@@ -67,7 +67,7 @@ def test_layered_grouped_fields_matches_native(rng, make_reads):
 
 def test_layered_int64_positions(rng, make_reads):
     """The int64 dtype path (indexes past 2^31 positions) must be exact —
-    including the 8-bit-plane fused root, which needs more planes."""
+    including the fused root table gathered at int64."""
     text, dense, native = _setup(rng, 6000)
     arrays, meta, host = build_layered(dense, dtype=np.int64)
     assert meta.dtype == "int64"

@@ -57,14 +57,14 @@ def test_two_process_distributed_run(tmp_path, rng):
     worker_py.write_text(WORKER)
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("JAX_", "XLA_"))}
-    # device='cpu' exercises the per-read path; device='tpu' (the jax
-    # engine — host CPU backend here) exercises the STAGED fast path with
-    # host-stride sharding (VERDICT r4 weak #1: P>1 previously fell off
-    # the staged path onto the ~4x-slower per-read prep)
-    for device in ("cpu", "tpu"):
+    # device='cpu' exercises the per-read path; device='gpu' (the JAX
+    # engines, on the CPU platform the workers choose) exercises the STAGED
+    # fast path with host-stride sharding
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for device in ("cpu", "gpu"):
         port = str(29000 + int(rng.integers(0, 500)))
         procs = [subprocess.Popen(
-            [sys.executable, str(worker_py), "/root/repo", str(pid), "2",
+            [sys.executable, str(worker_py), repo, str(pid), "2",
              port, str(tmp_path / "idx"), reads_path, device],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
             for pid in range(2)]
@@ -72,7 +72,7 @@ def test_two_process_distributed_run(tmp_path, rng):
         for pid, (p, out) in enumerate(zip(procs, outs)):
             assert p.returncode == 0, f"worker {pid} failed:\n{out[-3000:]}"
             assert f"WORKER_OK {pid}" in out
-            if device == "tpu":
+            if device == "gpu":
                 assert f"host-stride shard {pid}/2" in out, \
                     f"worker {pid} did not take the staged fast path"
 

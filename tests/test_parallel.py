@@ -112,13 +112,13 @@ def test_fused_classify_kernel(rng, make_reads):
         rev[i, :len(a)] = a[::-1]
         lens[i] = len(a)
     alphabet = tuple(sorted(set(host.index_chars) | {0}))
-    planes = host.planes_for_alphabet(alphabet)
+    ctab = host.table_for_alphabet(alphabet)
     rev = host.rank_map(alphabet)[rev]
 
     bw, thr = 150, 5
     found, above, below, summ = fused_classify_kernel(
         arrays, jnp.asarray(rev), jnp.asarray(lens), thr, meta, "pml",
-        int(arrays.fields.shape[0]), bw, planes)
+        int(arrays.fields.shape[0]), bw, ctab)
     ref = native.query_pml(reads)
     for i, rd in enumerate(reads):
         h = binmax.classify(ref[i], bw, thr)

@@ -117,10 +117,11 @@ def test_tpu_cpu_engine_agreement(workdir):
     build(cfg)
     for mode in ("pml", "ms"):
         outs = {}
-        # 'tpu' resolves to host CPU devices here; 'occ' = engine v3
+        # 'gpu' runs the JAX engines on the CPU platform the suite chose;
+        # 'occ' = engine v3
         for key, device, engine in (("cpu", "cpu", "auto"),
-                                    ("tpu", "tpu", "auto"),
-                                    ("occ", "tpu", "occ")):
+                                    ("gpu", "gpu", "auto"),
+                                    ("occ", "gpu", "occ")):
             rcfg = RunConfig(ref_file=str(tmp / "idx"),
                              pattern_file=reads_path,
                              pml_requested=mode == "pml",
@@ -130,7 +131,7 @@ def test_tpu_cpu_engine_agreement(workdir):
             suffix = ".pseudo_lengths" if mode == "pml" else ".lengths"
             outs[key] = _parse_values_file(reads_path + suffix)
         for rid in outs["cpu"]:
-            assert np.array_equal(outs["cpu"][rid], outs["tpu"][rid]), rid
+            assert np.array_equal(outs["cpu"][rid], outs["gpu"][rid]), rid
             assert np.array_equal(outs["cpu"][rid], outs["occ"][rid]), rid
 
 
@@ -204,7 +205,7 @@ def test_sharded_ms_and_doc_modes(tmp_path, rng):
     assert len(jax.devices()) > 1, "test needs the virtual multi-device mesh"
 
     outputs = {}
-    for device in ("cpu", "tpu"):
+    for device in ("cpu", "gpu"):
         # MS + doc: pointers, extended lengths AND doc numbers
         run(RunConfig(ref_file=str(tmp_path / "idx"),
                       pattern_file=reads_path, ms_requested=True,
@@ -221,7 +222,7 @@ def test_sharded_ms_and_doc_modes(tmp_path, rng):
         outputs[device][".pml_doc"] = \
             open(reads_path + ".doc_numbers", "rb").read()
     for ext in outputs["cpu"]:
-        assert outputs["cpu"][ext] == outputs["tpu"][ext], ext
+        assert outputs["cpu"][ext] == outputs["gpu"][ext], ext
 
 
 def test_fastq_query_staged_path(tmp_path, rng):
@@ -388,7 +389,7 @@ def test_fast_start_skips_dense_load(workdir, monkeypatch):
                       pml_index=True, use_minimizers=False))
     rcfg = dict(ref_file=str(tmp / "idx"), pattern_file=reads_path,
                 pml_requested=True, min_digest=False, write_report=True,
-                device="tpu")
+                device="gpu")
     run(RunConfig(**rcfg))
     first_vals = _parse_values_file(reads_path + ".pseudo_lengths")
     first_report = _parse_report(reads_path + ".report")
@@ -427,14 +428,14 @@ def test_ks_report_staged_path_parity(workdir):
     ref_vals = open(reads_path + ".pseudo_lengths", "rb").read()
     ref_report = open(reads_path + ".report").read()
 
-    run(RunConfig(device="tpu", **base))
+    run(RunConfig(device="gpu", **base))
     assert open(reads_path + ".pseudo_lengths", "rb").read() == ref_vals
     assert open(reads_path + ".report").read() == ref_report
 
     # 2-host simulated stride (host 1 then host 0, which merges): the rand
     # stream must stay aligned with the global single-process order
-    run(RunConfig(device="tpu", process_index=1, process_count=2, **base))
-    run(RunConfig(device="tpu", process_index=0, process_count=2, **base))
+    run(RunConfig(device="gpu", process_index=1, process_count=2, **base))
+    run(RunConfig(device="gpu", process_index=0, process_count=2, **base))
     assert open(reads_path + ".pseudo_lengths", "rb").read() == ref_vals
     assert sorted(open(reads_path + ".report").read().splitlines()) == \
         sorted(ref_report.splitlines())
@@ -460,8 +461,8 @@ def test_ks_report_staged_path_parity(workdir):
                 f.write(ln + "\n")
     with open(dist.shard_path(reads_path + ".cursor", 0, 2), "w") as f:
         f.write("2")
-    run(RunConfig(device="tpu", process_index=1, process_count=2, **base))
-    run(RunConfig(device="tpu", process_index=0, process_count=2,
+    run(RunConfig(device="gpu", process_index=1, process_count=2, **base))
+    run(RunConfig(device="gpu", process_index=0, process_count=2,
                   resume=True, **base))
     assert open(reads_path + ".pseudo_lengths", "rb").read() == ref_vals
     assert sorted(open(reads_path + ".report").read().splitlines()) == \
